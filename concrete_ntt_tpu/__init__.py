@@ -1,6 +1,6 @@
-"""concrete_ntt_tpu — a TPU-native negacyclic NTT framework.
+"""concrete_ntt_tpu — a batched negacyclic NTT framework in JAX/XLA.
 
-Built from scratch in JAX/XLA/Pallas with the full capability set of the
+Built from scratch in JAX/XLA with the full capability set of the
 Rust `concrete-ntt` library (see SURVEY.md for the reference analysis):
 
   * `prime32` / `prime64` — negacyclic NTT plans over Z/pZ for 32- and
@@ -12,9 +12,9 @@ Rust `concrete-ntt` library (see SURVEY.md for the reference analysis):
   * `native_binary32/64/128` — variants optimized for {0,1} operands.
   * `product` — generic product-of-distinct-primes plan (tfhe-rs
     integration surface).
-  * `parallel` — multi-chip sharding: data-parallel batches, CRT channels
-    across chips, four-step large-N transforms with all-to-all stage
-    exchange over ICI.
+  * `parallel` — multi-device sharding: data-parallel batches, CRT
+    channels across devices, four-step large-N transforms with all-to-all
+    stage exchange.
   * `tables` — NTT-friendly prime tables + CRT constants.
   * `golden` — exact bigint oracle models (test layer).
 

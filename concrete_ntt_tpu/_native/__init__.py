@@ -1,16 +1,21 @@
 """Native (C++) host-math runtime: lazy g++ build + ctypes bindings.
 
-The accelerator path is JAX/XLA/Pallas; this module is the native tier for
+The device path is JAX/XLA; this module is the native tier for
 host-side plan construction (the reference's const-eval prime/roots layer and
 plan builders run in native Rust — src/prime.rs, src/roots.rs,
 prime32.rs:630-686). Falls back to the pure-Python implementations when the
 toolchain is unavailable or CONCRETE_NTT_TPU_NO_NATIVE=1 is set; all outputs
 are bit-identical to the Python builders (tests/test_native_ext.py).
+
+The library is built from the committed hostmath.cpp only: its file name
+carries a hash of that source, so a library built from other source (one
+copied along with a tree, say) is never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -19,24 +24,35 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "hostmath.cpp")
-_SO = os.path.join(_HERE, "hostmath.so")
 
 _lock = threading.Lock()
 _lib = None
 _lib_failed = False
 
 
-def _build() -> bool:
+def so_path(src: str = _SRC) -> str:
+    """Where the library built from `src` lives: keyed by the source hash."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(os.path.dirname(src), f"hostmath-{digest}.so")
+
+
+def _build(src: str, so: str) -> bool:
+    tmp = f"{so}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", _SO, _SRC],
+            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", tmp, src],
             check=True,
             capture_output=True,
             timeout=120,
         )
+        os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def lib():
@@ -51,14 +67,12 @@ def lib():
     with _lock:
         if _lib is not None:
             return _lib
-        stale = not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(
-            _SRC
-        )
-        if stale and not _build():
+        so = so_path()
+        if not os.path.exists(so) and not _build(_SRC, so):
             _lib_failed = True
             return None
         try:
-            L = ctypes.CDLL(_SO)
+            L = ctypes.CDLL(so)
         except OSError:
             _lib_failed = True
             return None

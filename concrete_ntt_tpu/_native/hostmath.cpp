@@ -1,6 +1,6 @@
 // Native host-math kernels for plan construction.
 //
-// The TPU compute path is JAX/XLA/Pallas; this C++ library is the native
+// The device compute path is JAX/XLA; this C++ library is the native
 // runtime tier for everything that runs on the HOST at plan-build time —
 // the same split as the reference, whose const-eval number theory
 // (src/prime.rs, src/roots.rs) and twiddle/plan construction
@@ -11,9 +11,9 @@
 //   * Tonelli-Shanks primitive-root finding (roots.rs:31-91) — EXACTLY the
 //     Python algorithm in utils/roots.py so twiddle tables are bit-identical
 //   * negacyclic twiddle tables (prime32.rs:223-246 semantics)
-//   * the four-step matrix builders for the MXU engine (ops/mxu32.py):
+//   * the four-step matrix builders for the int8 engine (ops/mxu32.py):
 //     stage-range basis runs, shared-matrix factorization with verification
-//   * int8 digit-plane packing for exact MXU modular matmuls
+//   * int8 digit-plane packing for exact modular matmuls
 //
 // Exposed as a flat C ABI consumed via ctypes (no pybind11 in this image).
 // Built lazily by concrete_ntt_tpu/_native/__init__.py with g++.

@@ -45,12 +45,10 @@ def _marshal_in(x, width: int, n: int):
         and len(x) == nlimbs
         and all(hasattr(e, "shape") and getattr(e, "ndim", 0) >= 1 for e in x)
     ):
-        # planar limb tuple (lo, hi[, ...]) — the PERFORMANCE format: the
-        # interleaved [..., n, nlimbs] array maps its trailing dim to 2/128
-        # TPU lanes, and inside a polymul chain every step pays two
-        # de-interleaves and one re-interleave of it (~955 ns/poly measured
-        # at n=2^14, tools/ab_marshal.py). Planar tuples are exactly what
-        # the engines consume, so marshalling is a no-op.
+        # planar limb tuple (lo, hi[, ...]) — the PERFORMANCE format:
+        # planar tuples are exactly what the engines consume, so
+        # marshalling is a no-op, where the interleaved [..., n, nlimbs]
+        # array costs two de-interleaves and one re-interleave per step.
         arrs = tuple(jnp.asarray(e) for e in x)
         if any(a.dtype != jnp.uint32 or a.shape != arrs[0].shape for a in arrs):
             raise TypeError(f"planar limbs must be {nlimbs} same-shape uint32 arrays")
@@ -214,7 +212,7 @@ class NativePlanBase:
 
     def _pointwise_inv(self, fl_arr, fr_arr):
         """Per-channel pointwise·n^-1 then inverse NTT → standard-order
-        residue list (fused on the MXU engine: bare Montgomery pointwise with
+        residue list (fused on the four-step engine: bare Montgomery pointwise with
         the 2^32 and n^-1 factors folded into the inverse column matrix)."""
         from .ops import ntt_dispatch
 
@@ -238,25 +236,6 @@ class NativePlanBase:
 
     def negacyclic_polymul(self, lhs, rhs, rhs_binary: bool = False):
         out_fmt = self._fmt_of(lhs)
-        if self.tier == "plan32":
-            from .ops import ntt_dispatch
-
-            parts_l, lead0, _ = _marshal_in(lhs, self.width, self.n)
-            parts_r, _, _ = _marshal_in(rhs, self.width, self.n)
-            stacked = ntt_dispatch.try_polymul32_stacked(
-                parts_l, parts_r, self.plans, rhs_binary
-            )
-            if stacked is not None:
-                residues = [stacked[i] for i in range(len(self.plans))]
-                value_parts = self._reconstruct(residues)
-                if not isinstance(value_parts, tuple):
-                    value_parts = (value_parts,)
-                out = _marshal_out(value_parts, lead0, out_fmt, self.n)
-                if out_fmt in ("u32", "np64"):
-                    return out.reshape(*lead0, self.n)
-                if out_fmt == "limbs":
-                    return out.reshape(*lead0, self.n, self.width // 32)
-                return out
         _, lead0, _ = _marshal_in(lhs, self.width, self.n)
         fl = self.fwd(lhs)
         fr = self.fwd_binary(rhs) if rhs_binary else self.fwd(rhs)

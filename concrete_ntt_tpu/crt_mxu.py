@@ -1,50 +1,33 @@
-"""MXU-assisted CRT reconstructions (the Garner "lift" of the inverse side).
-
-The round-5 hardware profiles put the mixed-radix lift at 13-16% of the
-composed polymul step (rec_u64_from5: 1.76 µs/poly at n=2^14;
-rec_u128_from10: 50.1 µs/poly = 16% of the native128 N=2^16 north-star
-step, benches/logs_r05/profile_stages128_n65536.jsonl) — all of it VPU
-work at ~13% HBM utilization, i.e. compute-bound on the slow unit.
+"""int8-matmul-assisted CRT reconstructions (the Garner "lift" of the
+inverse side).
 
 The lift has two phases:
 
   1. digit extraction (reference v2 pairing: pair digits + outer Garner,
      native64.rs:91-141 / native128.rs:20-118) — sequential mod-p algebra,
-     inherently VPU;
+     elementwise;
   2. mixed-radix accumulation  Σ_i digit_i · (Π_{j<i} P_j)  mod 2^w —
      a LINEAR map from the digits' bytes to the result's bytes with
      CONSTANT integer coefficients.
 
-Phase 2 is exactly the shape the MXU eats: split each digit into xor-128
-int8 byte planes (the same trick as the NTT operand planes,
-ops/mxu32_pallas._digit8), multiply by a constant [K, 4·out_limbs] int8
-matrix whose (k, c) entry is byte c of (256^b · prefix_i mod 2^w) offset
-by -128, and repair both offsets with one extra ones-column (Σx) plus a
-per-column numpy constant — byte-exact in int32 accumulators (≤ K·255²
-+ corrections < 2^24), then one VPU carry sweep packs the byte columns
-into u32 limbs. Wrapping mod 2^w falls out of dropping byte columns ≥ w/8
-and the final carry-out.
+Phase 2 is a matmul: split each digit into xor-128 int8 byte planes (the
+same trick as the NTT operand planes, ops/traced_scalar._digit8), multiply
+by a constant [K, 4·out_limbs] int8 matrix whose (k, c) entry is byte c of
+(256^b · prefix_i mod 2^w) offset by -128, and repair both offsets with one
+extra ones-column (Σx) plus a per-column numpy constant — byte-exact in
+int32 accumulators (≤ K·255² + corrections < 2^24), then one carry sweep
+packs the byte columns into u32 limbs. Wrapping mod 2^w falls out of
+dropping byte columns ≥ w/8 and the final carry-out.
 
-This module lives OUTSIDE ops/ deliberately: the hardware-verification
-markers hash ops/*.py because Mosaic (Pallas) kernels there can miscompile
-silently; everything here is plain XLA (`lax.dot_general` int8×int8→int32,
-exact on CPU and TPU when contracting the last axis — CLAUDE.md) with no
-Pallas surface, and it is covered by the same bit-exact cross-engine tests
-as ops/crt.py (tests/test_native.py golden/wrapping oracles +
-tests/test_crt_mxu.py equality on random inputs).
+Everything here is plain XLA (`lax.dot_general` int8×int8→int32, exact on
+every backend when contracting the last axis), covered by the same
+bit-exact cross-engine tests as ops/crt.py (tests/test_native.py golden /
+wrapping oracles + tests/test_crt_mxu.py equality on random inputs).
 
-MEASURED RESULT (round 5, TPU v5 lite — tools/ab_lift.py, interleaved
-min-of-reps, benches/logs_r05/ab_lift_mxu.log): the MXU formulation LOSES —
-rec_u64_from5 2443 vs 562 ns/poly, rec_u128_from10 86.6 vs 48.7 µs/poly.
-The contraction is K = 21/41 against the MXU's 128×128 tile (~4% shape
-ceiling), the 40 xor-128 byte planes are themselves VPU work comparable to
-the chains they replace, and the int32 byte-column intermediate adds ~4x
-the result bytes of HBM. The scalar-chain lift (ops/crt.py) therefore
-remains the default; this module stays as the measured negative result +
-the harness to revisit on hardware with a wider accumulation tile.
-
-Gate: CONCRETE_NTT_TPU_MXU_LIFT = 1 forces the MXU lift on (research/A-B);
-anything else keeps the scalar-chain lift.
+The contraction is short (K = 21/41), so the elementwise chain lift
+(ops/crt.py) is the default; whether this formulation wins on the H100 is
+not measured. Gate: CONCRETE_NTT_TPU_MXU_LIFT = 1 turns the int8 lift on
+(tools/ab_lift.py measures both); anything else keeps the chain lift.
 """
 
 from __future__ import annotations
@@ -92,7 +75,7 @@ def _mixed_radix_matrix(limb_counts: tuple, prefixes: tuple, out_limbs: int):
 
 
 def _mixed_radix_mxu(digits, prefixes, out_limbs: int):
-    """Σ digit_i · prefix_i mod 2^(32·out_limbs) on the MXU.
+    """Σ digit_i · prefix_i mod 2^(32·out_limbs) as one int8 matmul.
 
     digits: list of little-endian u32 limb tuples ([..., n] arrays);
     prefixes: python ints. Returns an out_limbs tuple of u32 arrays."""
@@ -130,9 +113,9 @@ def _mixed_radix_mxu(digits, prefixes, out_limbs: int):
 
 
 def rec_u64_from5(mods, primes):
-    """MXU-accumulated twin of ops.crt.rec_u64_from5 (bit-identical): the
+    """int8-matmul twin of ops.crt.rec_u64_from5 (bit-identical): the
     digit extraction (phase 1) reuses the exact crt helpers; the u64
-    mixed-radix accumulation rides the MXU."""
+    mixed-radix accumulation is one int8 matmul."""
     p0, p1, p2, p3, p4 = primes
     m0, m1, m2, m3, m4 = mods
     p12 = p1 * p2
@@ -159,7 +142,7 @@ def rec_u64_from5(mods, primes):
 
 
 def rec_u128_from5(mods, primes):
-    """MXU twin of ops.crt.rec_u128_from5 (native_binary128 lift)."""
+    """int8-matmul twin of ops.crt.rec_u128_from5 (native_binary128 lift)."""
     p0, p1, p2, p3, p4 = primes
     m0, m1, m2, m3, m4 = mods
     p12 = p1 * p2
@@ -186,7 +169,7 @@ def rec_u128_from5(mods, primes):
 
 
 def rec_u128_from10(mods, primes):
-    """MXU twin of ops.crt.rec_u128_from10 (native128 lift, the north-star
+    """int8-matmul twin of ops.crt.rec_u128_from10 (native128 lift, the north-star
     shape): v2 pair digits + outer Garner exactly as the crt version, then
     one [K=40(+1), 16(+1)] int8 matmul replaces the four u64×u128
     mullo_limbs accumulation chains."""

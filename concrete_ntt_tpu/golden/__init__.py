@@ -1,6 +1,6 @@
 """Golden (oracle) models: exact bigint implementations of every algorithm.
 
-Test-support layer per SURVEY.md §7 M1 — all JAX/Pallas kernels are asserted
+Test-support layer per SURVEY.md §7 M1 — all JAX kernels are asserted
 bit-exact against these.
 """
 

@@ -2,7 +2,7 @@
 
 This is the oracle layer (SURVEY.md §7 M1): a bit-exact executable
 specification of the reference's transform semantics, against which every
-JAX/Pallas kernel is asserted. It intentionally trades speed for clarity —
+JAX kernel is asserted. It intentionally trades speed for clarity —
 exact Python-int modular arithmetic, no lazy reduction tricks.
 
 Conventions (reference: src/prime32.rs, src/prime64.rs):

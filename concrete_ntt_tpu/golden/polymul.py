@@ -60,3 +60,19 @@ def negacyclic_convolution_wrapping_np(lhs: np.ndarray, rhs: np.ndarray) -> np.n
             for k, i in enumerate(range(start, stop)):
                 full[i : i + n] += outer[k]
     return full[:n] - full[n:]
+
+
+def negacyclic_coefficients(lhs, rhs, ks, modulus: int) -> list[int]:
+    """Coefficients `ks` of the exact negacyclic product, reduced mod
+    `modulus` (2^bits for the wrapping contract), each an O(n) bigint sum —
+    the oracle for sizes where the full O(n^2) product is too slow."""
+    n = len(lhs)
+    assert len(rhs) == n
+    a = [int(v) for v in lhs]
+    b = [int(v) for v in rhs]
+    out = []
+    for k in ks:
+        s = sum(a[i] * b[k - i] for i in range(k + 1))
+        s -= sum(a[i] * b[n + k - i] for i in range(k + 1, n))
+        out.append(s % modulus)
+    return out

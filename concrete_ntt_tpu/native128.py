@@ -5,7 +5,7 @@ Capability parity with src/native128.rs: Plan32 = 10× 30-bit prime32 channels
 width 128 (native128.rs) and neither do we.
 
 u128 values cross the device boundary as (..., n, 4) uint32 limb arrays
-(TPUs have no 128-bit integers; neither does NumPy), or as lists of Python
+(JAX has no 128-bit integers; neither does NumPy), or as lists of Python
 ints for host convenience.
 """
 

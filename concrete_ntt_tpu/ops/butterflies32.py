@@ -1,4 +1,4 @@
-"""Prime32 butterfly regimes (u32 VPU algebra).
+"""Prime32 butterfly regimes (u32 elementwise algebra).
 
 Three regimes selected by the modulus size, mirroring the reference's
 dispatch (prime32.rs:713-755):
@@ -16,7 +16,7 @@ makes outputs bit-exact against the golden model and the Rust reference.
 
 The reference's wrapping `min` trick `z0.min(z0.wrapping_sub(2p))`
 (less_than_30bit.rs:125-128) relies on two's-complement compare semantics;
-on TPU we use an explicit select (`cond_sub`) — SURVEY.md §7 hard part 1.
+here we use an explicit select (`cond_sub`) — SURVEY.md §7 hard part 1.
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
 """Prime64 butterfly regimes (u64 values as u32 limb pairs).
 
-TPU re-design of the reference's prime64 dispatch ladder
+Batched re-design of the reference's prime64 dispatch ladder
 (prime64.rs:794-864). The reference's five regimes map to four here:
 
   * p < 2^62  — 64-bit Shoup, lazy [0,4p)  (less_than_62bit.rs:7-130).
     This tier also covers the 50-bit PRIMES52 family, i.e. it subsumes the
-    reference's AVX512-IFMA less_than_50bit/51bit tiers (TPUs have no 52-bit
-    multiplier; the u32-limb Shoup path is the native equivalent).
+    reference's AVX512-IFMA less_than_50bit/51bit tiers (no 52-bit multiplier here; the u32-limb
+    Shoup path is the equivalent).
   * p < 2^63  — 64-bit Shoup, lazy [0,2p)  (less_than_63bit.rs).
   * p = 2^64 - 2^32 + 1 — Goldilocks/Solinas special reduction
-    (generic_solinas.rs:103-128), the flagship TPU prime64 path: reduction is
+    (generic_solinas.rs:103-128), the flagship prime64 path: reduction is
     pure shifts/adds on 32-bit limbs.
   * any other p — Montgomery-domain twiddles via REDC64 (replaces the
     reference's u256-reciprocal generic engine, generic_solinas.rs:42-75).

@@ -1,6 +1,6 @@
 """Generic radix-2 NTT stage engine (pure jnp, XLA path).
 
-TPU-first re-design of the reference's breadth-first engines
+Batched re-design of the reference's breadth-first engines
 (fwd_breadth_first_* / inv_breadth_first_*, prime32/shoup.rs:53-160,
 prime64/shoup.rs): instead of strided scalar loops + in-register interleave
 networks, every stage is a whole-array reshape + slice + vectorized butterfly
@@ -20,9 +20,9 @@ Stage structure (identical twiddle indexing to the reference):
        (inv_breadth_first_scalar, prime32/shoup.rs:1355-1408).
 
 The depth-first cache-blocking recursion of the reference
-(RECURSION_THRESHOLD, prime32.rs:12) has no analogue here: on TPU the
-equivalent locality control is the fused Pallas kernel (ops/pallas32.py) and
-the four-step decomposition (parallel/fourstep.py).
+(RECURSION_THRESHOLD, prime32.rs:12) has no analogue here: the
+equivalent locality control is the four-step decomposition (ops/mxu32.py,
+parallel/fourstep.py).
 """
 
 from __future__ import annotations

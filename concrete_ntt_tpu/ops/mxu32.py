@@ -1,10 +1,10 @@
-"""MXU (int8 systolic-array) four-step engine for the prime32 NTT.
+"""Four-step int8 matmul engine for the prime32 NTT.
 
-Motivation (measured on TPU v5e): the VPU butterfly engine is bound by
-`mulhi_u32` (a 16-bit-split high multiply, ~16 VPU ops), paying one per
-butterfly per stage — 14 high-multiply sweeps for n = 2^14. The MXU, by
-contrast, sustains ~430 int8 TOP/s. This engine moves the O(n log n)
-multiply work onto the MXU by collapsing the stage loop into two modular
+Motivation: the butterfly stage engine is bound by `mulhi_u32` (a
+16-bit-split high multiply, ~16 elementwise ops), paying one per butterfly
+per stage — 14 high-multiply sweeps for n = 2^14 — while int8 matrix
+products run on the tensor cores. This engine moves the O(n log n)
+multiply work into int8 matmuls by collapsing the stage loop into two modular
 matrix products (the classical four-step/Bailey factorization, here derived
 directly from the reference's stage structure so outputs are bit-identical
 to the stage engine and therefore to the Rust reference):
@@ -19,7 +19,7 @@ to the stage engine and therefore to the Rust reference):
     matmul. The inverse engine mirrors this: C_r = diag(e_r) * G, then the
     shared n1 x n1 column matrix A_inv.
 
-Exact modular matmul on an int8 MXU: operand x (any u32 representative of
+Exact modular matmul in int8 arithmetic: operand x (any u32 representative of
 the residue) is split into four unsigned radix-2^8 digit planes (shifted to
 int8 by -128); the matrix M is pre-multiplied by 2^(8e) mod p for each
 operand digit e, centered to (-p/2, p/2], and balanced-digit decomposed into
@@ -39,7 +39,7 @@ Reference parity anchors: stage structure fwd_breadth_first_scalar
 (prime32/shoup.rs:582-636), inv (shoup.rs:1355-1408); twiddle tables
 (prime32.rs:223-246). The reference's cache-blocking recursion
 (RECURSION_THRESHOLD, prime32.rs:12) is replaced by this matmul
-factorization — the idiomatic TPU locality mechanism.
+factorization.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ import numpy as np
 
 from .u32 import add_mod, mont_mul, mont_neginv, shoup_mul_lazy
 
-_MIN_P = 1 << 26  # below this the cond-sub reduction chains get long; use VPU path
+_MIN_P = 1 << 26  # below this the cond-sub reduction chains get long; use the stage engine
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +184,7 @@ def _col_matrix_inv(n, n1, n2, inv_twid, p):
 def four_step_factors(n: int) -> tuple[int, int]:
     """The canonical four-step split n = n1·n2 (n1 = 2^(log2n//2)) — the
     ONE definition every table builder and kernel index map must share
-    (mxu32/mxu64, their Pallas twins, ops/stagesplit)."""
+    (mxu32/mxu64, ops/stagesplit, ops/traced_scalar)."""
     log2n = n.bit_length() - 1
     n1 = 1 << (log2n // 2)
     return n1, n // n1
@@ -219,7 +219,7 @@ def _prep_matrix(M: np.ndarray, p: int, n_eplanes: int = 4, n_d: int = 4):
     E = n_eplanes is the number of radix-2^8 digit planes of the OPERAND:
     4 for u32 inputs, 8 for u64 limb-pair inputs, 16 for u128 — the residue
     reduction of wide operands is linear mod p, so it folds into the matmul
-    (the TPU answer to the reference's per-coefficient `% p` residue split,
+    (the matmul answer to the reference's per-coefficient `% p` residue split,
     native64.rs:980-993).
     """
     K, O = M.shape
@@ -431,7 +431,7 @@ def _digit_cat(x):
         for ee in range(4):
             # (d & 255) - 128 as an int8 BIT PATTERN equals (d ^ 128)'s low
             # byte (adding 128 mod 256 flips bit 7; the i8 convert truncates)
-            # — 3 VPU ops/plane instead of 5 in the kernel hot path.
+            # — 3 elementwise ops/plane instead of 5.
             dig = (limb >> np.uint32(8 * ee)) ^ np.uint32(128)
             parts.append(dig.astype(jnp.int8))
     return jnp.concatenate(parts, axis=-1)

@@ -1,4 +1,4 @@
-"""MXU (int8 systolic-array) four-step engine for the prime64 NTT.
+"""Four-step int8 matmul engine for the prime64 NTT.
 
 Same architecture as ops/mxu32.py — the stage loop collapses into two shared
 modular matrix products (column matrix A, input-side diagonal d, row matrix
@@ -60,7 +60,7 @@ def _n_dplanes(p: int) -> int:
     """Matrix digit planes: smallest D whose balanced radix-256 digits cover
     the centered entries |v| <= p/2 (max positive = 127*(256^D-1)/255).
     7 for the ~50-bit Plan52 table primes, 8 up to ~2^62.99, 9 for
-    Goldilocks — fewer planes mean proportionally less MXU work and table
+    Goldilocks — fewer planes mean proportionally less matmul work and table
     traffic (the "plane diet")."""
     d = 1
     while p // 2 > 127 * ((1 << (8 * d)) - 1) // 255:
@@ -357,7 +357,7 @@ def _digit_cat(limbs: tuple, n_planes: int | None = None):
     for ee in range(n_planes):
         limb = limbs[ee // 4]
         # (d & 255) - 128 == low byte of (d ^ 128) as an int8 bit pattern
-        # (see mxu32._digit_cat) — 2 fewer VPU ops per plane in-kernel.
+        # (see mxu32._digit_cat) — 2 fewer elementwise ops per plane.
         dig = (limb >> np.uint32(8 * (ee % 4))) ^ np.uint32(128)
         parts.append(dig.astype(jnp.int8))
     return jnp.concatenate(parts, axis=-1)
@@ -462,8 +462,7 @@ def _scaled_epilogue(v0, v1, v2, tab, tbl):
     "shoup" mode is the fused fold+scale epilogue: with V = v0 + v1·2^32 +
     v2·2^64, the result is (v0,v1)·W + v2·(2^64·W mod p) — two lazy Shoup
     multiplies (the v2 one u32-specialized) replacing the previous top-limb
-    fold *plus* Montgomery scale (measured VPU-epilogue-bound at ~27% MXU
-    utilization before this fusion). Bounds (p < 2^62): t1, t2 ∈ [0, 2p)
+    fold *plus* Montgomery scale. Bounds (p < 2^62): t1, t2 ∈ [0, 2p)
     → t1+t2 < 4p < 2^64 exact — a valid lazy representative."""
     tab = tuple(jnp.asarray(a) for a in tab)
     if tbl["scale_mode"] == "shoup":

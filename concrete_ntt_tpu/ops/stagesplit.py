@@ -1,15 +1,12 @@
 """Stage-split hybrid NTT engine: butterfly prefix + blockwise four-steps.
 
-Why: the four-step MXU engine pays n·(n1+n2)·E·D int8 MACs per polynomial
-(docs/MXU_ENGINE.md §7), and on this hardware factors below 128 waste the
-128-wide systolic contraction, so at n > 2^14 the factor sum grows past the
-2^14 sweet spot (n = 2^15 → n1+n2 = 384; 2^17 → 768). Butterfly stages,
-however, run on the VPU, not the MXU. This engine runs ℓ = log2(n) − 14
-Cooley–Tukey stages as cheap XLA butterfly layers and then 2^ℓ INDEPENDENT
-size-2^14 four-step transforms — n·256·E·D MACs + ℓ·O(n) VPU work for any
-n, i.e. the same per-element MXU cost as the engine's best size (the
-asymptotic n^0.5 factor growth is gone; the model predicts ~25-40% on
-prime64 n = 2^15 and ~2x+ at 2^17).
+Why: the four-step engine pays n·(n1+n2)·E·D int8 MACs per polynomial
+(docs/MXU_ENGINE.md §5), so its per-element cost grows as n^0.5 past
+n = 2^14 (n = 2^15 → n1+n2 = 384; 2^17 → 768). This engine runs
+ℓ = log2(n) − 14 Cooley–Tukey stages as elementwise XLA butterfly layers
+and then 2^ℓ INDEPENDENT size-2^14 four-step transforms — n·256·E·D MACs
++ ℓ·O(n) elementwise work for any n, i.e. the same per-element matmul cost
+as the engine at 2^14.
 
 Correctness is by construction + complete structural proof, no new twiddle
 algebra:
@@ -36,8 +33,8 @@ algebra:
 
 Reference relation: the reference handles large n with depth-first cache
 blocking (RECURSION_THRESHOLD, prime32.rs:12) — same recursive CT split,
-applied here to keep the MXU at its best operating point instead of the L1
-cache. No reference code is reused.
+applied here to keep the four-step matmuls at their 2^14 operating point
+instead of the L1 cache. No reference code is reused.
 """
 
 from __future__ import annotations
@@ -63,7 +60,7 @@ from .u32 import (
     sub64b,
 )
 
-N_H = 1 << 14  # block transform size: the MXU engine's measured sweet spot
+N_H = 1 << 14  # block transform size
 
 
 def applicable64(n: int, p: int, n_h: int = N_H) -> bool:
@@ -317,7 +314,7 @@ def _scaled_ainv_blocks64(n: int, p: int, n_h: int, scale: int):
 
 def fwd64(limbs: tuple, *, n: int, p: int, n_h: int = N_H):
     """Hybrid forward: ℓ XLA butterfly stages + 2^ℓ blockwise four-steps.
-    Bit-identical to mxu64.fwd (tests + tools/tpu_parity.py)."""
+    Bit-identical to mxu64.fwd (tests, chip_smoke.py)."""
     dv = _dev64(n, p, n_h)
     x = tuple(jnp.asarray(a) for a in limbs)
     for s in range(dv["l"]):
@@ -359,200 +356,25 @@ def inv64(limbs: tuple, *, n: int, p: int, scale: int = 1, n_h: int = N_H):
     return x
 
 
-# ---------------------------------------------------------------------------
-# Fused-Pallas tier: prefix/suffix in XLA, blocks as the PROVEN (n_h, p)
-# whole-transform kernel shape class with per-block table constants
-# ---------------------------------------------------------------------------
-
-
-def fwd64_fused(limbs: tuple, *, n: int, p: int, n_h: int = N_H):
-    """Hybrid forward with the blocks on the fused Pallas kernels."""
-    from . import mxu64_pallas
-
-    dv = _dev64(n, p, n_h)
-    x = tuple(jnp.asarray(a) for a in limbs)
-    for s in range(dv["l"]):
-        x = _stage_fwd64(x, dv["fwd_tw"][s], dv["sc"])
-    b = x[0].shape[0]
-    nb = 1 << dv["l"]
-    xb = tuple(a.reshape(b, nb, n_h) for a in x)
-    outs = [
-        mxu64_pallas.fwd(
-            tuple(a[:, i, :] for a in xb), n=n_h, p=p, hyb=(n, i)
-        )
-        for i in range(nb)
-    ]
-    return tuple(
-        jnp.concatenate([o[j] for o in outs], axis=-1) for j in range(2)
-    )
-
-
-def inv64_fused(limbs: tuple, *, n: int, p: int, scale: int = 1,
-                n_h: int = N_H):
-    """Hybrid inverse with the blocks on the fused Pallas kernels."""
-    from . import mxu64_pallas
-
-    dv = _dev64(n, p, n_h)
-    x = tuple(jnp.asarray(a) for a in limbs)
-    b = x[0].shape[0]
-    nb = 1 << dv["l"]
-    xb = tuple(a.reshape(b, nb, n_h) for a in x)
-    outs = [
-        mxu64_pallas.inv(
-            tuple(a[:, i, :] for a in xb), n=n_h, p=p, scale=scale, hyb=(n, i)
-        )
-        for i in range(nb)
-    ]
-    x = tuple(
-        jnp.concatenate([o[j] for o in outs], axis=-1) for j in range(2)
-    )
-    for s in range(dv["l"] - 1, -1, -1):
-        x = _stage_inv64(x, dv["inv_tw"][s], dv["sc"])
-    return x
-
-
 class _Engine64:
     """Dispatch shim with the mxu64 engine surface (u64 limb pairs only —
     the dispatcher keeps wide limb tuples on the direct four-step)."""
 
-    def __init__(self, fused: bool):
-        self._fused = fused
-
     def fwd(self, limbs, *, n, p):
         assert len(limbs) == 2, "hybrid engine is u64-pair only"
-        return (fwd64_fused if self._fused else fwd64)(limbs, n=n, p=p)
+        return fwd64(limbs, n=n, p=p)
 
     def inv(self, limbs, *, n, p, scale=1):
         assert len(limbs) == 2, "hybrid engine is u64-pair only"
-        f = inv64_fused if self._fused else inv64
-        return f(limbs, n=n, p=p, scale=scale)
+        return inv64(limbs, n=n, p=p, scale=scale)
 
 
-engine64_fused = _Engine64(fused=True)
-engine64_xla = _Engine64(fused=False)
-
-
-# ---------------------------------------------------------------------------
-# Channel-grid hybrid (Plan52 CRT channels at n > 2^14): per-channel prefix
-# stages + per-block channel-grid kernels with block tables
-# ---------------------------------------------------------------------------
-
-
-def multi_hybrid_applicable64(n: int, primes, n_h: int = N_H) -> bool:
-    from . import mxu64_pallas
-
-    return n > n_h and mxu64_pallas.multi_applicable(n_h, primes) and all(
-        applicable64(n, p, n_h) for p in primes
-    )
-
-
-def _prefix_fwd_per_channel64(limbs, primes, n, n_h):
-    """ℓ forward stages per channel on the SHARED u64 input (the butterfly
-    twiddles differ per channel) -> stacked [C, B, n] limb pair."""
-    parts = []
-    for p in primes:
-        dv = _dev64(n, p, n_h)
-        x = tuple(jnp.asarray(a) for a in limbs)
-        for s in range(dv["l"]):
-            x = _stage_fwd64(x, dv["fwd_tw"][s], dv["sc"])
-        parts.append(x)
-    return (
-        jnp.stack([c[0] for c in parts], axis=0),
-        jnp.stack([c[1] for c in parts], axis=0),
-    )
-
-
-def _suffix_inv_per_channel64(lo, hi, primes, n, n_h):
-    out_lo, out_hi = [], []
-    for ch, p in enumerate(primes):
-        dv = _dev64(n, p, n_h)
-        x = (lo[ch], hi[ch])
-        for s in range(dv["l"] - 1, -1, -1):
-            x = _stage_inv64(x, dv["inv_tw"][s], dv["sc"])
-        out_lo.append(x[0])
-        out_hi.append(x[1])
-    return jnp.stack(out_lo, axis=0), jnp.stack(out_hi, axis=0)
-
-
-def fwd_multi_hybrid64(limbs: tuple, primes: tuple, *, n: int,
-                       n_h: int = N_H):
-    """Hybrid channel-grid forward: (lo, hi) [B, n] shared limb pair ->
-    (lo, hi) of [C, B, n] canonical NTT-domain residues (matches
-    mxu64_pallas.fwd_multi bit-for-bit)."""
-    from . import mxu64_pallas
-
-    lo, hi = _prefix_fwd_per_channel64(limbs, primes, n, n_h)
-    C, b = lo.shape[0], lo.shape[1]
-    nb = n // n_h
-    lo = lo.reshape(C, b, nb, n_h)
-    hi = hi.reshape(C, b, nb, n_h)
-    outs = [
-        mxu64_pallas.fwd_multi_perchannel64(
-            lo[:, :, i, :], hi[:, :, i, :], tuple(primes), hyb=(n, i)
-        )
-        for i in range(nb)
-    ]
-    return (
-        jnp.concatenate([o[0] for o in outs], axis=-1),
-        jnp.concatenate([o[1] for o in outs], axis=-1),
-    )
-
-
-def inv_multi_hybrid64(x_lo, x_hi, primes: tuple, scales: tuple, *, n: int,
-                       n_h: int = N_H):
-    """Hybrid channel-grid scaled inverse (matches mxu64_pallas.inv_multi)."""
-    from . import mxu64_pallas
-
-    C, b = x_lo.shape[0], x_lo.shape[1]
-    nb = n // n_h
-    lo = jnp.asarray(x_lo).reshape(C, b, nb, n_h)
-    hi = jnp.asarray(x_hi).reshape(C, b, nb, n_h)
-    outs = [
-        mxu64_pallas.inv_multi(
-            lo[:, :, i, :], hi[:, :, i, :], tuple(primes), tuple(scales),
-            hyb=(n, i),
-        )
-        for i in range(nb)
-    ]
-    cat_lo = jnp.concatenate([o[0] for o in outs], axis=-1)
-    cat_hi = jnp.concatenate([o[1] for o in outs], axis=-1)
-    return _suffix_inv_per_channel64(cat_lo, cat_hi, primes, n, n_h)
-
-
-def pointwise_inv_multi_hybrid64(fl, fr, primes: tuple, scales: tuple, *,
-                                 n: int, n_h: int = N_H):
-    """Hybrid pointwise-Montgomery + scaled inverse (matches
-    mxu64_pallas.pointwise_inv_multi): the pointwise product is elementwise
-    in the NTT domain, so it runs inside each block's kernel."""
-    from . import mxu64_pallas
-
-    C, b = fl[0].shape[0], fl[0].shape[1]
-    nb = n // n_h
-    rs = lambda a: jnp.asarray(a).reshape(C, b, nb, n_h)
-    fl = (rs(fl[0]), rs(fl[1]))
-    fr = (rs(fr[0]), rs(fr[1]))
-    outs = [
-        mxu64_pallas.pointwise_inv_multi(
-            (fl[0][:, :, i], fl[1][:, :, i]),
-            (fr[0][:, :, i], fr[1][:, :, i]),
-            tuple(primes), tuple(scales), hyb=(n, i),
-        )
-        for i in range(nb)
-    ]
-    cat_lo = jnp.concatenate([o[0] for o in outs], axis=-1)
-    cat_hi = jnp.concatenate([o[1] for o in outs], axis=-1)
-    return _suffix_inv_per_channel64(cat_lo, cat_hi, primes, n, n_h)
+engine64 = _Engine64()
 
 
 # ---------------------------------------------------------------------------
 # 32-bit hybrid (prime32): same host build, u32 stage butterflies
 # ---------------------------------------------------------------------------
-
-
-def applicable32(n: int, p: int, variant: str, n_h: int = N_H) -> bool:
-    from . import mxu32
-
-    return n > n_h and (n & (n - 1)) == 0 and mxu32.applicable(n_h, p, variant)
 
 
 def _stage_tabs32(tw: np.ndarray, p: int, mont: bool):
@@ -686,7 +508,7 @@ def _scaled_ainv_blocks32(n: int, p: int, n_h: int, scale: int):
     return tuple(out)
 
 
-def _hybrid32_run(x, n, p, n_h, direction, scale, fused):
+def _hybrid32_run(x, n, p, n_h, direction, scale):
     from . import mxu32
 
     dv = _dev32(n, p, n_h)
@@ -697,37 +519,21 @@ def _hybrid32_run(x, n, p, n_h, direction, scale, fused):
             x = _stage_fwd32(x, dv["fwd_tw"][s], dv["sc"])
     b = x.shape[0]
     xb = x.reshape(b, nb, n_h)
-    if fused:
-        from . import mxu32_pallas
-
-        if direction == "fwd":
-            outs = [
-                mxu32_pallas.fwd(xb[:, i, :], n=n_h, p=p, hyb=(n, i))
-                for i in range(nb)
-            ]
-        else:
-            outs = [
-                mxu32_pallas.inv(
-                    xb[:, i, :], n=n_h, p=p, scale=scale, hyb=(n, i)
-                )
-                for i in range(nb)
-            ]
+    if direction == "fwd":
+        outs = [
+            mxu32._fwd_core(xb[:, i, :], dv["blocks"][i], p=p)
+            for i in range(nb)
+        ]
     else:
         mats = (
             [None] * nb
-            if direction == "fwd" or scale == 1
+            if scale == 1
             else _scaled_ainv_blocks32(n, p, n_h, scale % p)
         )
-        if direction == "fwd":
-            outs = [
-                mxu32._fwd_core(xb[:, i, :], dv["blocks"][i], p=p)
-                for i in range(nb)
-            ]
-        else:
-            outs = [
-                mxu32._inv_core(xb[:, i, :], dv["blocks"][i], p=p, mat2=mats[i])
-                for i in range(nb)
-            ]
+        outs = [
+            mxu32._inv_core(xb[:, i, :], dv["blocks"][i], p=p, mat2=mats[i])
+            for i in range(nb)
+        ]
     x = jnp.concatenate(outs, axis=-1)
     if direction == "inv":
         for s in range(dv["l"] - 1, -1, -1):
@@ -736,207 +542,8 @@ def _hybrid32_run(x, n, p, n_h, direction, scale, fused):
 
 
 def fwd32(x, *, n: int, p: int, n_h: int = N_H):
-    return _hybrid32_run(x, n, p, n_h, "fwd", 1, fused=False)
+    return _hybrid32_run(x, n, p, n_h, "fwd", 1)
 
 
 def inv32(x, *, n: int, p: int, scale: int = 1, n_h: int = N_H):
-    return _hybrid32_run(x, n, p, n_h, "inv", scale, fused=False)
-
-
-def fwd32_fused(x, *, n: int, p: int, n_h: int = N_H):
-    return _hybrid32_run(x, n, p, n_h, "fwd", 1, fused=True)
-
-
-def inv32_fused(x, *, n: int, p: int, scale: int = 1, n_h: int = N_H):
-    return _hybrid32_run(x, n, p, n_h, "inv", scale, fused=True)
-
-
-class _Engine32:
-    """Dispatch shim with the mxu32 engine surface (single u32 arrays)."""
-
-    def __init__(self, fused: bool):
-        self._fused = fused
-
-    def fwd(self, x, *, n, p):
-        return _hybrid32_run(x, n, p, N_H, "fwd", 1, self._fused)
-
-    def inv(self, x, *, n, p, scale=1):
-        return _hybrid32_run(x, n, p, N_H, "inv", scale, self._fused)
-
-
-engine32_fused = _Engine32(fused=True)
-engine32_xla = _Engine32(fused=False)
-
-
-# ---------------------------------------------------------------------------
-# 32-bit channel-grid hybrid (native-plan prime32 channels at n > 2^14)
-# ---------------------------------------------------------------------------
-
-
-@lru_cache(maxsize=64)
-def _wide_block_planes32(n: int, p: int, n_h: int, block: int, n_limbs: int):
-    """Per-block column planes consuming u{32*n_limbs} limb tuples (the
-    fused residue split, 4*n_limbs operand planes)."""
-    from . import mxu32
-
-    ops = _hybrid_ops(n, p, n_h)
-    return mxu32._prep(ops[f"A{block}"].T, p, n_eplanes=4 * n_limbs)
-
-
-@lru_cache(maxsize=16)
-def _dev32w(n: int, p: int, n_h: int):
-    """u64-limb-pair prefix-stage tables for a 30-bit channel prime: the
-    prefix butterflies run in 64-bit limb algebra mod p (shoup lazy — any
-    p < 2^62), so the residue split stays fused into the block matmuls."""
-    ops = _hybrid_ops(n, p, n_h)
-    sc = {
-        "p": p,
-        "mont": False,
-        "neginv": 0,
-        "c64": const64_like((1 << 64) % p),
-    }
-    return {"sc": sc, "fwd_tw": _stage_tabs(ops["tw"], p, False)}
-
-
-def multi_hybrid_applicable32(n: int, primes, n_h: int = N_H) -> bool:
-    from . import mxu32_pallas
-
-    return (
-        n > n_h
-        and mxu32_pallas.fused_applicable(n_h)
-        and all((1 << 29) < p < (1 << 30) for p in primes)
-        and (n & (n - 1)) == 0
-    )
-
-
-def _prefix_fwd_channels32(x_per_ch, primes, n, n_h):
-    """ℓ u32 forward stages per channel on per-channel residue arrays
-    [C, B, n] -> [C, B, n]."""
-    outs = []
-    for ch, p in enumerate(primes):
-        dv = _dev32(n, p, n_h)
-        x = x_per_ch[ch]
-        for s in range(dv["l"]):
-            x = _stage_fwd32(x, dv["fwd_tw"][s], dv["sc"])
-        outs.append(x)
-    return jnp.stack(outs, axis=0)
-
-
-def fwd_wide_multi_hybrid32(limbs: tuple, primes: tuple, *, n: int,
-                            n_h: int = N_H):
-    """Hybrid channel-grid forward for native plans: shared limb tuple
-    (1 = u32 values, 2 = u64) -> [C, B, n] canonical NTT-domain residues
-    (matches mxu32_pallas.fwd_wide_multi bit-for-bit)."""
-    from . import mxu32_pallas
-
-    C = len(primes)
-    nb = n // n_h
-    if len(limbs) == 1:
-        # u32 values are valid residue representatives for every channel
-        x = jnp.broadcast_to(
-            jnp.asarray(limbs[0])[None], (C,) + limbs[0].shape
-        )
-        x = _prefix_fwd_channels32(x, primes, n, n_h)
-        b = x.shape[1]
-        x = x.reshape(C, b, nb, n_h)
-        outs = [
-            mxu32_pallas.fwd_multi_perchannel(
-                x[:, :, i, :], tuple(primes), hyb=(n, i)
-            )
-            for i in range(nb)
-        ]
-        return jnp.concatenate(outs, axis=-1)
-    assert len(limbs) == 2, "u128 operands keep the direct path"
-    los, his = [], []
-    for p in primes:
-        dv = _dev32w(n, p, n_h)
-        x = tuple(jnp.asarray(a) for a in limbs)
-        for s in range(len(dv["fwd_tw"])):
-            x = _stage_fwd64(x, dv["fwd_tw"][s], dv["sc"])
-        los.append(x[0])
-        his.append(x[1])
-    lo = jnp.stack(los, axis=0)
-    hi = jnp.stack(his, axis=0)
-    b = lo.shape[1]
-    lo = lo.reshape(C, b, nb, n_h)
-    hi = hi.reshape(C, b, nb, n_h)
-    outs = [
-        mxu32_pallas.fwd_wide_multi_perchannel(
-            lo[:, :, i, :], hi[:, :, i, :], tuple(primes), hyb=(n, i)
-        )
-        for i in range(nb)
-    ]
-    return jnp.concatenate(outs, axis=-1)
-
-
-def fwd_perchannel_multi_hybrid32(x, primes: tuple, *, n: int,
-                                  n_h: int = N_H):
-    """Hybrid per-channel-input forward (Bounded product path)."""
-    from . import mxu32_pallas
-
-    C = len(primes)
-    nb = n // n_h
-    xc = _prefix_fwd_channels32(
-        [jnp.asarray(x)[ch] for ch in range(C)], primes, n, n_h
-    )
-    b = xc.shape[1]
-    xc = xc.reshape(C, b, nb, n_h)
-    outs = [
-        mxu32_pallas.fwd_multi_perchannel(
-            xc[:, :, i, :], tuple(primes), hyb=(n, i)
-        )
-        for i in range(nb)
-    ]
-    return jnp.concatenate(outs, axis=-1)
-
-
-def _suffix_inv_channels32(x, primes, n, n_h):
-    outs = []
-    for ch, p in enumerate(primes):
-        dv = _dev32(n, p, n_h)
-        y = x[ch]
-        for s in range(dv["l"] - 1, -1, -1):
-            y = _stage_inv32(y, dv["inv_tw"][s], dv["sc"])
-        outs.append(y)
-    return jnp.stack(outs, axis=0)
-
-
-def inv_multi_hybrid32(x, primes: tuple, scales: tuple, *, n: int,
-                       n_h: int = N_H):
-    """Hybrid channel-grid scaled inverse (matches mxu32_pallas.inv_multi)."""
-    from . import mxu32_pallas
-
-    C = len(primes)
-    b = x.shape[-2]
-    nb = n // n_h
-    xb = jnp.asarray(x).reshape(C, b, nb, n_h)
-    outs = [
-        mxu32_pallas.inv_multi(
-            xb[:, :, i, :], tuple(primes), tuple(scales), hyb=(n, i)
-        )
-        for i in range(nb)
-    ]
-    cat = jnp.concatenate(outs, axis=-1)
-    return _suffix_inv_channels32(cat, primes, n, n_h)
-
-
-def pointwise_inv_multi_hybrid32(fl, fr, primes: tuple, scales: tuple, *,
-                                 n: int, n_h: int = N_H):
-    """Hybrid pointwise-Montgomery + scaled inverse (matches
-    mxu32_pallas.pointwise_inv_multi)."""
-    from . import mxu32_pallas
-
-    C = len(primes)
-    b = fl.shape[-2]
-    nb = n // n_h
-    flb = jnp.asarray(fl).reshape(C, b, nb, n_h)
-    frb = jnp.asarray(fr).reshape(C, b, nb, n_h)
-    outs = [
-        mxu32_pallas.pointwise_inv_multi(
-            flb[:, :, i, :], frb[:, :, i, :], tuple(primes), tuple(scales),
-            hyb=(n, i),
-        )
-        for i in range(nb)
-    ]
-    cat = jnp.concatenate(outs, axis=-1)
-    return _suffix_inv_channels32(cat, primes, n, n_h)
+    return _hybrid32_run(x, n, p, n_h, "inv", scale)

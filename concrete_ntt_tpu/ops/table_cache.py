@@ -5,7 +5,8 @@ Plan construction cost is dominated by building the six four-step operators
 native C++ builder. The matrices are pure functions of (n, p), so they are
 cached as .npz files across processes (tests, benches, the driver's compile
 checks). Set CONCRETE_NTT_TPU_NO_TABLE_CACHE=1 to disable, or
-CONCRETE_NTT_TPU_CACHE_DIR to relocate (default ~/.cache/concrete_ntt_tpu).
+CONCRETE_NTT_TPU_CACHE_DIR to relocate (default: .cache/tables in the
+checkout).
 
 The reference has no analogue (its plans are cheap: twiddle tables only,
 prime32.rs:630-686); this is derived-state caching for the matmul engines'
@@ -28,7 +29,9 @@ def _cache_dir() -> str | None:
         return None
     d = os.environ.get("CONCRETE_NTT_TPU_CACHE_DIR")
     if not d:
-        d = os.path.join(os.path.expanduser("~"), ".cache", "concrete_ntt_tpu")
+        from ..utils.runtime import CACHE_ROOT
+
+        d = os.path.join(CACHE_ROOT, "tables")
     try:
         os.makedirs(d, exist_ok=True)
         return d

@@ -1,13 +1,13 @@
-"""u32-limb modular arithmetic primitives (device-side, VPU-friendly).
+"""u32-limb modular arithmetic primitives (device-side, elementwise).
 
-This is the TPU replacement for the reference's SIMD layer (src/lib.rs
-V3/V4/V4IFma widening multiplies, lib.rs:126-334). TPUs have no 64-bit
-integer multiplier, so *all* wide arithmetic decomposes into uint32 limbs
+This is the replacement for the reference's SIMD layer (src/lib.rs
+V3/V4/V4IFma widening multiplies, lib.rs:126-334). The arithmetic stays in
+32-bit lanes (no jax_enable_x64), so *all* wide arithmetic decomposes into uint32 limbs
 with 16-bit-split high multiplies — the direct analogue of the reference's
 `widening_mul_u64x8` built from 32-bit partial products (lib.rs:171-203).
 
 Every function here is pure jnp on uint32 arrays and runs identically under
-plain XLA, inside Pallas TPU kernels, and on the CPU backend (tests).
+plain XLA on the GPU and on the CPU backend (tests).
 
 Value representations:
   * u32 scalar fields: plain uint32 arrays.
@@ -337,7 +337,7 @@ def shoup_mul_u32_lazy64(z32, w, w_shoup, p):
     q = ⌊z·w_shoup/2^64⌋ < z·w/p + 1 ≤ 2^32 fits a single u32, so computing
     it needs only the top limb of the 96-bit product z·w_shoup — 2 wide
     multiplies instead of the 4 of a full mulhi64. Used for the top-limb
-    folds of the 3-limb MXU combine (ops/mxu64)."""
+    folds of the 3-limb four-step combine (ops/mxu64)."""
     w_lo, w_hi = w
     wsh_lo, wsh_hi = w_shoup
     p_pair = const64_like(p) if isinstance(p, int) else p

@@ -1,12 +1,12 @@
-"""Multi-chip parallelism (no reference analogue — SURVEY.md §2.12).
+"""Multi-device parallelism (no reference analogue — SURVEY.md §2.12).
 
-The reference is single-core SIMD; this package supplies the TPU-native
+The reference is single-core SIMD; this package supplies the
 scaling strategies the BASELINE.json north star specifies:
 
   * `fourstep` / `fourstep_mxu` — large-N transforms split N = N1×N2 with
-    butterfly stages blocked per chip and the inter-pass transpose as
-    `lax.all_to_all` over ICI (the transform analogue of sequence
-    parallelism; one all-to-all per transform on the MXU path).
+    butterfly stages blocked per device and the inter-pass transpose as
+    `lax.all_to_all` (the transform analogue of sequence parallelism; one
+    all-to-all per transform on the four-step path).
   * `channels` — CRT residue channels sharded over a `ch` mesh axis
     (`ChannelShardedNative`): split → fwd → pointwise → inv run per channel
     shard with traced per-channel tables; the only cross-channel collective

@@ -1,10 +1,10 @@
 """Four-step sharded negacyclic NTT: large transforms across a device mesh.
 
 The reference scales within one core via depth-first cache blocking
-(RECURSION_THRESHOLD, prime32.rs:12); across chips there is no reference
-analogue (SURVEY.md §2.12) — this module is the TPU-native invention the
-BASELINE.json north star asks for: butterfly stages blocked per chip with the
-inter-stage transpose as an all-to-all over ICI.
+(RECURSION_THRESHOLD, prime32.rs:12); across devices there is no reference
+analogue (SURVEY.md §2.12) — this module is the invention the BASELINE.json
+north star asks for: butterfly stages blocked per device with the
+inter-stage transpose as an all-to-all.
 
 Math: view the length-N array as [N1, N2] (row-major). CT stages
 0..log2(N1)-1 of the *global* transform touch only elements whose indices
@@ -15,8 +15,8 @@ twid[(N1 + i1)·2^s' + j] at local stage s' (the bit-reversed table is
 self-similar, so no separate twiddle-correction pass is needed — the twist
 lives in the table, exactly as in the reference's single-core engine).
 
-Sharding: pass 1 shards columns (N2/D per chip, fully local); one
-lax.all_to_all re-tiles to rows (N1/D per chip); pass 2 is fully local.
+Sharding: pass 1 shards columns (N2/D per device, fully local); one
+lax.all_to_all re-tiles to rows (N1/D per device); pass 2 is fully local.
 Input/output layout matches the reference order: out[i1·N2 + j2], sharded
 contiguously along the transform axis.
 """

@@ -1,15 +1,15 @@
-"""Multi-chip MXU four-step NTT: sharded matmul transform over an ICI mesh.
+"""Multi-device four-step NTT: the sharded matmul transform over a mesh.
 
-The single-chip MXU engine (ops/mxu32.py) factors the transform into
+The single-device four-step engine (ops/mxu32.py) factors the transform into
 column-matmul -> diagonal -> row-matmul. That factorization IS the
 distributed decomposition (SURVEY.md §5: N = N1 x N2 with the inter-factor
-transpose as the ICI collective):
+transpose as the collective):
 
   * coefficient layout: [B, n1, n2] sharded on the n2 axis (columns);
   * the column matmul contracts n1 — embarrassingly parallel over columns;
   * the four-step diagonal is elementwise with a per-rank slice;
   * ONE jax.lax.all_to_all redistributes n2-sharding to n1-sharding (the
-    distributed transpose, riding ICI);
+    distributed transpose);
   * the row matmul contracts n2 — parallel over the now-local rows.
 
 The layouts alternate stably: values sharded P(dp, None, sp) <-> NTT domain
@@ -30,15 +30,6 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..ops import mxu32, mxu64
-
-
-def _pallas_wanted() -> bool:
-    """Fused pass kernels on real TPU, or anywhere under interpret mode —
-    the same interpret-aware gate as ops/ntt_dispatch, so the CPU test suite
-    drives the Pallas pass kernels inside the shard_map'd local sections."""
-    from ..ops.ntt_dispatch import _pallas_impls_runnable
-
-    return _pallas_impls_runnable()
 
 
 def make_sharded_prime32_mxu(plan, mesh, axis: str = "sp", batch_axis=None):
@@ -64,17 +55,8 @@ def make_sharded_prime32_mxu(plan, mesh, axis: str = "sp", batch_axis=None):
     d_tabs = tuple(np.asarray(a) for a in tbl["d"])  # [n2, n1] (fwd mid)
     e_tabs = tuple(np.asarray(a) for a in tbl["e"])  # [n1, n2] (inv mid)
 
-    use_pallas = _pallas_wanted()
-
     def _pass(x, which, diag=()):
-        """One fused modular-matmul pass on the local shard (VMEM Pallas
-        kernel on TPU, pure-XLA elsewhere; bit-identical)."""
-        if use_pallas:
-            from ..ops import mxu32_pallas
-
-            return mxu32_pallas.pass_matmod(
-                x, n=n, p=p, which=which, diag_slices=tuple(diag)
-            )
+        """One modular-matmul pass on the local shard."""
         if diag:
             return mxu32._matmod_scaled_lazy(x, tbl[which], tuple(diag), tbl, p=p)
         return mxu32._matmod(x, tbl[which], tbl, p=p)
@@ -99,8 +81,6 @@ def make_sharded_prime32_mxu(plan, mesh, axis: str = "sp", batch_axis=None):
         out = _pass(y, "Ainv")
         return out.transpose(0, 2, 1)  # [b, n1, n2/s] standard order
 
-    # check_vma=False: pallas_call outputs inside the local section don't
-    # carry varying-mesh-axes metadata
     fwd_sharded = shard_map(
         fwd_local,
         mesh=mesh,
@@ -165,17 +145,7 @@ def make_sharded_prime64_mxu(plan, mesh, axis: str = "sp", batch_axis=None):
     d_tabs = tuple(np.asarray(a) for a in tbl["d"])  # [n2, n1] (fwd mid)
     e_tabs = tuple(np.asarray(a) for a in tbl["e"])  # [n1, n2] (inv mid)
 
-    use_pallas = _pallas_wanted()
-
     def _pass(pair, which, mont=(), scale=1):
-        if use_pallas:
-            from ..ops import mxu64_pallas
-
-            o = n1 if which in ("A", "Ainv") else n2
-            return mxu64_pallas.pass_matmod64(
-                pair, n=n, p=p, which=which, mont_slices=tuple(mont),
-                scale=scale, row_fuse=mxu64_pallas._fuse_for64(o),
-            )
         if mont:
             return mxu64._matmod_scaled_lazy(pair, tbl[which], tuple(mont), tbl)
         if scale != 1:

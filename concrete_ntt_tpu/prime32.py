@@ -1,4 +1,4 @@
-"""32-bit prime negacyclic NTT plan (TPU-native, batch-first).
+"""32-bit prime negacyclic NTT plan (batch-first).
 
 Capability parity with the reference's `prime32::Plan`
 (src/prime32.rs:600-928): precomputed bit-reversed negacyclic twiddle tables
@@ -11,7 +11,7 @@ ops. Differences by design (SURVEY.md §7):
   * **Regime dispatch by modulus size** matches prime32.rs:713-755 —
     p < 2^30 lazy-[0,4p), p < 2^31 lazy-[0,2p) — but the reference's
     p ≥ 2^31 Lemire-reciprocal engine is replaced by Montgomery-domain
-    twiddles (no native u64 lanes on TPU).
+    twiddles (the arithmetic stays in u32 lanes).
   * Elementwise ops use Montgomery products instead of the reference's
     Barrett ladders (prime32.rs:286-598); outputs are identical (canonical).
 
@@ -37,7 +37,7 @@ from .ops.u32 import add_mod, mont_mul, mont_neginv
 from .utils.prime import is_prime64
 
 MIN_N = 2  # reference requires n >= 32 (SIMD width, prime32.rs:632-635); the
-# vectorized TPU engine has no such constraint, so we accept any power of two
+# vectorized engine has no such constraint, so we accept any power of two
 # >= 2 (superset of the reference's domain).
 
 

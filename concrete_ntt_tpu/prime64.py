@@ -1,14 +1,14 @@
-"""64-bit prime negacyclic NTT plan (TPU-native, u32 limb pairs).
+"""64-bit prime negacyclic NTT plan (u32 limb pairs).
 
 Capability parity with the reference's `prime64::Plan`
-(src/prime64.rs:701-1129). TPUs have no 64-bit integer multiplier, so u64
+(src/prime64.rs:701-1129). The arithmetic stays in 32-bit lanes, so u64
 coefficients live as little-endian uint32 limb pairs on device — the
 analogue of the reference's `widening_mul_u64x8` building 64-bit lanes from
 32-bit partial products (lib.rs:171-203).
 
 Regime dispatch (vs the reference's five tiers, prime64.rs:794-864):
   * p = 2^64-2^32+1 → Goldilocks/Solinas special path (generic_solinas.rs:103-128)
-    — the flagship TPU tier (reduction = limb shifts/adds).
+    — the flagship tier (reduction = limb shifts/adds).
   * p < 2^62 → 64-bit Shoup lazy-[0,4p) (less_than_62bit.rs); subsumes the
     IFMA less_than_50bit/51bit tiers (PRIMES52 runs here).
   * p < 2^63 → 64-bit Shoup lazy-[0,2p) (less_than_63bit.rs).

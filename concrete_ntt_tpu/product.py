@@ -185,7 +185,7 @@ class Plan:
             and mode[1] < min(self.primes32)
         )
         if not use_bounded and self.plans32 and not self.plans64:
-            # fused split+fwd: the channel-grid kernels consume raw limbs
+            # fused split+fwd: the four-step forward consumes raw limbs
             # (residue reduction folded into the column matmul)
             from .ops import ntt_dispatch
 
@@ -206,8 +206,7 @@ class Plan:
                 neg_res = jnp.uint32(pl.p) - comp_lo
                 res32.append(jnp.where(positive, pos_res, neg_res))
             # fused path: the centering is one cheap elementwise stage; the
-            # per-channel transforms still ride the channel-grid kernels
-            # (per-channel-input variant, since the residues differ by p_i)
+            # per-channel transforms still ride the four-step engine
             from .ops import ntt_dispatch
 
             ntts = ntt_dispatch.try_fwd32_perchannel_all(
@@ -397,15 +396,14 @@ class Plan:
         lhs_fwd_mode=bounded(b) applies the centered forward representation
         to lhs (the PBS accumulator operand, product.rs:303-322).
 
-        u32-only channel sets ride the fused MXU fast path: residue split
-        folded into the channel-grid forward kernels (Bounded centering is
-        one extra cheap elementwise stage feeding the per-channel-input
-        kernel variant), bare Montgomery pointwise + scaled inverse in one
-        kernel, then the CRT lift (+ accumulate) as one fused XLA
-        elementwise stage — the TPU shape of the reference's hand-written
-        AVX512 lift+accumulate kernel (product.rs:419-789). Falls back to
-        the generic channel-wise path (bit-identical) when the kernels
-        don't apply."""
+        u32-only channel sets ride the fused four-step fast path: residue
+        split folded into the forward's column matmul (Bounded centering is
+        one extra cheap elementwise stage), bare Montgomery pointwise +
+        scaled inverse, then the CRT lift (+ accumulate) as one fused XLA
+        elementwise stage — the device shape of the reference's
+        hand-written AVX512 lift+accumulate kernel (product.rs:419-789).
+        Falls back to the generic channel-wise path (bit-identical) when
+        the four-step engine does not serve the channels."""
         out = self._try_polymul_fused(lhs, rhs, mode, standard, out_format,
                                       lhs_fwd_mode)
         if out is not None:

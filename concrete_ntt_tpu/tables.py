@@ -15,12 +15,12 @@ bit bound that satisfy the exact round-up-division magic property) and
 asserted against the known-good values; the CRT constants are computed at
 import with Python bigints instead of being spelled out one by one.
 
-TPU-specific addition (no reference analogue): an *extended* 30-bit prime
-family ≡ 1 (mod 2^18), unlocking N up to 2^17 for the multi-chip sharded
+Addition with no reference analogue: an *extended* 30-bit prime
+family ≡ 1 (mod 2^18), unlocking N up to 2^17 for the multi-device sharded
 transforms (the reference's table caps N at 2^15; see SURVEY.md §5).
 
-The 52-bit IFMA tier has no TPU analogue (no 52-bit multiplier); its role —
-"fewer, wider CRT channels" — is covered on TPU by the 30-bit tier plus the
+The 52-bit IFMA tier has no analogue here (no 52-bit multiplier); its role —
+"fewer, wider CRT channels" — is covered by the 30-bit tier plus the
 Goldilocks prime64 path. The values are still exposed for table-parity tests
 and for host-side use by the product plan.
 """
@@ -60,7 +60,7 @@ PRIMES52: tuple[int, ...] = (
 )
 
 #: Goldilocks prime 2^64 - 2^32 + 1 (reference: prime64::Solinas,
-#: generic_solinas.rs:35-40). Especially TPU-friendly: reduction of a 128-bit
+#: generic_solinas.rs:35-40). Especially limb-friendly: reduction of a 128-bit
 #: product uses only 32-bit shifts/adds since 2^64 ≡ 2^32 - 1 (mod p).
 GOLDILOCKS: int = (1 << 64) - (1 << 32) + 1
 
@@ -90,7 +90,7 @@ def generate_ntt_primes(
 def primes32_ext() -> tuple[int, ...]:
     """Extended family: ten 30-bit primes ≡ 1 (mod 2^18) → N up to 2^17.
 
-    TPU-only extension for large sharded transforms; no reference analogue.
+    Extension for large sharded transforms; no reference analogue.
     """
     return generate_ntt_primes(10, 30, 1 << 18)
 
@@ -117,7 +117,7 @@ def native_channel_primes(k: int, n: int) -> tuple[int, ...] | None:
     """First k 30-bit CRT channel primes supporting transform size n.
 
     n <= 2^15 uses the reference's table (≡ 1 mod 2^16, lib.rs:453-462);
-    n in (2^15, 2^17] uses the extended ≡ 1 (mod 2^18) family — a TPU-only
+    n in (2^15, 2^17] uses the extended ≡ 1 (mod 2^18) family — a
     capability beyond the reference's N <= 2^15 cap (mul_poly_native.rs:5,
     lib.rs:767-769). Returns None when n is out of range."""
     if n <= (1 << 15):

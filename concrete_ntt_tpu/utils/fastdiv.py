@@ -3,9 +3,9 @@
 Capability parity with the reference's src/fastdiv.rs (Div32/Div64 — Lemire /
 Granlund–Montgomery reciprocal division) and the "magic constant" machinery of
 src/lib.rs:416-445. In the reference these constants feed branch-free SIMD
-remainders; in the TPU build the same role is played by:
+remainders; here the same role is played by:
 
-  * Barrett constants for on-device reduction in u32-limb Pallas kernels, and
+  * Barrett constants for on-device reduction in u32-limb kernels, and
   * Shoup companions ("precomputed quotients") for exact modular multiplication
     by a known constant with two 32x32->32 multiplies.
 

@@ -3,7 +3,7 @@ composite (no reference example; hot-loop anchor product.rs:444-445).
 
 A `product.Plan` over two 30-bit primes computes polynomial products modulo
 m = p0*p1 and accumulates them into a running buffer in one fused call —
-the TPU shape of an external-product loop. Batch-first: every array carries
+the device shape of an external-product loop. Batch-first: every array carries
 a leading batch axis and the whole loop jits.
 """
 

@@ -1,6 +1,6 @@
-"""MXU-assisted Garner lift (crt_mxu) == scalar-chain lift (ops/crt), bit-exact.
+"""int8-matmul Garner lift (crt_mxu) == scalar-chain lift (ops/crt), bit-exact.
 
-The MXU lift re-expresses the mixed-radix accumulation as an int8
+The int8 lift re-expresses the mixed-radix accumulation as an int8
 digit-plane matmul (exact int32 accumulation, CLAUDE.md: int8 dots are
 exact on CPU too), so equality must hold to the bit on every backend."""
 
@@ -73,7 +73,7 @@ def test_rec_boundary_values():
 
 
 def test_native64_polymul_gate(rng, monkeypatch):
-    """negacyclic_polymul is bit-identical with the MXU lift on and off."""
+    """negacyclic_polymul is bit-identical with the int8 lift on and off."""
     n = 512
     plan = native64.Plan32.try_new(n)
     assert plan is not None

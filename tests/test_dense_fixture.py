@@ -4,8 +4,7 @@ The wrapping-oracle polymul tests run at N = 64 (O(n^2) bigint cost); the
 larger sizes rest on roundtrip + sparse oracles + cross-engine equality.
 This test closes the remaining gap — "every engine agrees, but is the
 agreed answer right?" — by asserting the full negacyclic_polymul pipeline
-at N = 2048 (served by the production MXU pass kernels under interpret
-mode) against SHA-256 digests of the EXACT host-computed wrapping
+at N = 2048 (served by the four-step engines) against SHA-256 digests of the EXACT host-computed wrapping
 convolution, committed in tests/fixtures/dense_oracle_2048.json
 (regenerate with tools/make_dense_fixture.py; its oracle is cross-checked
 against golden.polymul at small n).

@@ -2,9 +2,9 @@
 
 The reference's hardcoded primes are ≡ 1 (mod 2^16), capping negacyclic
 transforms at N = 2^15 (lib.rs:767-769; benches stop at 32768,
-benches/ntt.rs:84). The TPU build adds an extended 30-bit family ≡ 1
+benches/ntt.rs:84). This build adds an extended 30-bit family ≡ 1
 (mod 2^18), unlocking N up to 2^17 for the native CRT plans — needed for
-the multi-chip sharded-transform configs (BASELINE.md).
+the multi-device sharded-transform configs (BASELINE.md).
 
 Full schoolbook oracles are O(N^2) and unusable at 2^16; correctness rests
 on (a) the roundtrip law inv(fwd(x)) == N*x per channel, (b) a wrapping

@@ -1,4 +1,4 @@
-"""MXU (int8-matmul) four-step prime32 engine: bit-exactness vs golden.
+"""Four-step int8-matmul prime32 engine: bit-exactness vs golden.
 
 The engine must be indistinguishable from the stage engines: same
 bit-reversed output convention, canonical [0, p) outputs, inv(fwd(x)) = n*x

@@ -1,4 +1,4 @@
-"""MXU four-step prime64 engine: bit-exactness vs the stage engine.
+"""Four-step int8-matmul prime64 engine: bit-exactness vs the stage engine.
 
 Covers the two supported regimes — p < 2^62 with exact magic (the 52-bit
 table primes) and Goldilocks 2^64-2^32+1 — plus lazy (arbitrary u64)

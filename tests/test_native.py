@@ -178,7 +178,7 @@ def test_binary_fwd_binary_skips_reduction(rng):
 
 def test_try_new_invalid_n():
     # The reference caps N at 2^15 (primes ≡ 1 mod 2^16, lib.rs:767-769);
-    # the TPU build extends to 2^17 via the ≡ 1 (mod 2^18) family and
+    # this build extends to 2^17 via the ≡ 1 (mod 2^18) family and
     # fails beyond that.
     assert native64.Plan32.try_new(1 << 16) is not None
     assert native64.Plan32.try_new(1 << 18) is None
@@ -191,9 +191,8 @@ def test_try_new_invalid_n():
 @pytest.mark.slow
 @pytest.mark.parametrize("tier", ["plan32", "plan52"])
 def test_native64_planar_polymul_matches_interleaved(tier, rng):
-    """Planar (lo, hi) tuples are the zero-marshalling device format
-    (tools/ab_marshal.py: interleaved [.., n, 2] costs ~955 ns/poly at
-    n=2^14 on TPU); results must be bit-identical to the array formats."""
+    """Planar (lo, hi) tuples are the zero-marshalling device format;
+    results must be bit-identical to the array formats."""
     from concrete_ntt_tpu.ops.u32 import np_u64_to_limbs
 
     plan = (native64.Plan32 if tier == "plan32" else native64.Plan52).try_new(N)

@@ -175,7 +175,7 @@ def test_validation():
 
 
 def test_product_plan_on_mxu_engine_matches_xla(rng, monkeypatch):
-    """The product plan's channels ride the MXU engine at n >= 2048."""
+    """The product plan's channels ride the four-step engine at n >= 2048."""
     import numpy as np
 
     from concrete_ntt_tpu import product

@@ -10,8 +10,8 @@ composition *asserted*, the repo's standard:
   (dp-sharded batch, dispatch-served transforms at n = 2^15), asserted
   both bit-exactly vs the unsharded path and via a trace-time call spy;
 * the channel-sharded classes (ChannelShardedNative 32 + 52) run an
-  n >= 2^15 config against the single-device plan served BY the hybrid
-  tier (CONCRETE_NTT_TPU_HYBRID=1 + interpret mode), bit-exactly.
+  n >= 2^15 config against the single-device plan served by the GPU
+  route's engines, bit-exactly.
 
 All on the virtual 8-device CPU mesh (conftest).
 """
@@ -45,9 +45,7 @@ def _limbs64(rng, b, n):
 
 
 def _hybrid_env(monkeypatch):
-    monkeypatch.setenv("CONCRETE_NTT_TPU_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("CONCRETE_NTT_TPU_ENGINE", "mxu")
-    monkeypatch.setenv("CONCRETE_NTT_TPU_HYBRID", "1")
+    monkeypatch.setattr(nd, "_platform", lambda: "gpu")
 
 
 @pytest.mark.slow
@@ -58,10 +56,10 @@ def test_hybrid64_engages_inside_shard_map(rng, cpu_mesh_devices, monkeypatch):
     _hybrid_env(monkeypatch)
     n = 1 << 15
     p = lpap(2 * n, 1, 0, 1 << 50)
-    assert nd._hybrid64_wanted(n, p)
+    assert nd.served_by(64, n, p) == "hybrid"
 
     calls = {"fwd": 0, "inv": 0}
-    real_fwd, real_inv = stagesplit.fwd64_fused, stagesplit.inv64_fused
+    real_fwd, real_inv = stagesplit.fwd64, stagesplit.inv64
 
     def spy_fwd(*a, **k):
         calls["fwd"] += 1
@@ -71,8 +69,8 @@ def test_hybrid64_engages_inside_shard_map(rng, cpu_mesh_devices, monkeypatch):
         calls["inv"] += 1
         return real_inv(*a, **k)
 
-    monkeypatch.setattr(stagesplit, "fwd64_fused", spy_fwd)
-    monkeypatch.setattr(stagesplit, "inv64_fused", spy_inv)
+    monkeypatch.setattr(stagesplit, "fwd64", spy_fwd)
+    monkeypatch.setattr(stagesplit, "inv64", spy_inv)
 
     limbs = _limbs64(rng, 4, n)
     want_f = nd.try_fwd64(limbs, n, p)
@@ -105,66 +103,13 @@ def test_hybrid64_engages_inside_shard_map(rng, cpu_mesh_devices, monkeypatch):
 
 
 @pytest.mark.slow
-def test_polymul32_stacked_hybrid_inside_shard_map(rng, cpu_mesh_devices,
-                                                   monkeypatch):
-    """The flagship stacked plan32 polymul fast path (5 prime32 channels,
-    channel-grid hybrid kernels at n=2^15) inside a dp-sharded shard_map,
-    vs the unsharded fast path. This is the exact composition the real pod
-    serves: batch data-parallel over chips, hybrid dispatch per shard."""
-    _hybrid_env(monkeypatch)
-    n = 1 << 15
-    plan = native64.Plan32.try_new(n)
-    assert plan is not None
-    assert nd._hybrid32_multi_wanted(n, plan.plans)
-
-    calls = {"n": 0}
-    real = stagesplit.fwd_wide_multi_hybrid32
-
-    def spy(*a, **k):
-        calls["n"] += 1
-        return real(*a, **k)
-
-    monkeypatch.setattr(stagesplit, "fwd_wide_multi_hybrid32", spy)
-
-    def mk(seed):
-        r = np.random.default_rng(seed)
-        x = r.integers(0, 1 << 64, (4, n), dtype=np.uint64)
-        return (
-            jnp.asarray((x & 0xFFFFFFFF).astype(np.uint32)),
-            jnp.asarray((x >> np.uint64(32)).astype(np.uint32)),
-        )
-
-    la, ra = mk(1), mk(2)
-    want = nd.try_polymul32_stacked(la, ra, plan.plans)
-    assert want is not None and calls["n"] == 2  # lhs + rhs forwards
-
-    mesh = _dp_mesh(4)
-    sh = NamedSharding(mesh, P("dp", None))
-
-    def local(llo, lhi, rlo, rhi):
-        return nd.try_polymul32_stacked((llo, lhi), (rlo, rhi), plan.plans)
-
-    sharded = jax.jit(
-        shard_map(
-            local, mesh=mesh,
-            in_specs=(P("dp", None),) * 4,
-            out_specs=P(None, "dp", None),
-            check_vma=False,
-        )
-    )
-    got = sharded(*(jax.device_put(a, sh) for a in (*la, *ra)))
-    assert calls["n"] == 4  # hybrid engaged again inside the local section
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-@pytest.mark.slow
 def test_channel_sharded_52_at_2pow15_vs_hybrid_single_device(
     rng, cpu_mesh_devices, monkeypatch
 ):
     """ChannelShardedNative52 at n=2^15 (the first size the hybrid serves)
-    vs the single-device Plan52 polymul SERVED BY the hybrid dispatch tier:
-    the sharded traced-scalar local sections and the hybrid block engines
-    must agree bit-for-bit end to end."""
+    vs the single-device Plan52 polymul served by the GPU route: the sharded
+    traced-scalar local sections and the four-step engines must agree
+    bit-for-bit end to end."""
     n = 1 << 15
     plan = native64.Plan52.try_new(n)
     assert plan is not None
@@ -178,7 +123,6 @@ def test_channel_sharded_52_at_2pow15_vs_hybrid_single_device(
     got = np.asarray(sharded.negacyclic_polymul(lhs, rhs))
 
     _hybrid_env(monkeypatch)
-    assert nd._hybrid64_wanted(n, plan.plans[0].p)
     want = np.asarray(plan.negacyclic_polymul(lhs, rhs))
     np.testing.assert_array_equal(got, want)
 
@@ -189,8 +133,7 @@ def test_channel_sharded_32_sp_at_2pow15_vs_hybrid_single_device(
 ):
     """ChannelShardedNative (native128 Plan32, dp x ch x sp with the
     four-step all-to-all) at n=2^15 vs the single device served by the
-    mxu dispatch tiers (u128 operands keep the direct — non-hybrid —
-    channel path by design, ntt_dispatch.try_fwd32_wide_all)."""
+    four-step dispatch tier (ntt_dispatch.try_fwd32_wide_all)."""
     n = 1 << 15
     plan = native128.Plan32.try_new(n)
     assert plan is not None

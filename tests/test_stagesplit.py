@@ -64,39 +64,21 @@ def test_hybrid_inv_folded_scale(rng, tag):
 
 
 def test_dispatch_hybrid_at_2pow15_matches_direct(rng, monkeypatch):
-    """The auto dispatch tier (n > 2^14, u64 pairs) is bit-identical to the
-    direct four-step through the public dispatch entry points."""
+    """The dispatch tier the GPU route picks at n > 2^14 (u64 pairs) is the
+    hybrid, bit-identical to the direct four-step through the public
+    dispatch entry points."""
     from concrete_ntt_tpu.ops import ntt_dispatch
 
     n = 1 << 15
     p = _regime_prime(n, "p50")
     limbs = _limbs(rng, 1, n)
-    monkeypatch.setenv("CONCRETE_NTT_TPU_ENGINE", "mxu")
-    monkeypatch.setenv("CONCRETE_NTT_TPU_HYBRID", "0")
-    want_f = ntt_dispatch.try_fwd64(limbs, n, p)
-    want_i = ntt_dispatch.try_inv64(limbs, n, p, scale=7)
-    monkeypatch.setenv("CONCRETE_NTT_TPU_HYBRID", "auto")
+    want_f = mxu64.fwd(limbs, n=n, p=p)
+    want_i = mxu64.inv(limbs, n=n, p=p, scale=7)
+    monkeypatch.setattr(ntt_dispatch, "_platform", lambda: "gpu")
+    assert ntt_dispatch.served_by(64, n, p) == "hybrid"
     got_f = ntt_dispatch.try_fwd64(limbs, n, p)
     got_i = ntt_dispatch.try_inv64(limbs, n, p, scale=7)
     for g, w in zip(got_f + got_i, want_f + want_i):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
-
-
-def test_hybrid_fused_pallas_interpret_matches_xla(rng, monkeypatch):
-    """The fused-Pallas hybrid tier (prefix in XLA + per-block fused
-    kernels with injected tables) in interpreter mode vs the XLA hybrid."""
-    monkeypatch.setenv("CONCRETE_NTT_TPU_PALLAS_INTERPRET", "1")
-    n = 1 << 15
-    p = _regime_prime(n, "p50")
-    limbs = _limbs(rng, 2, n)
-    got = stagesplit.fwd64_fused(limbs, n=n, p=p)
-    want = stagesplit.fwd64(limbs, n=n, p=p)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
-    s = pow(n, p - 2, p) * pow(2, 64, p) % p
-    got_i = stagesplit.inv64_fused(limbs, n=n, p=p, scale=s)
-    want_i = stagesplit.inv64(limbs, n=n, p=p, scale=s)
-    for g, w in zip(got_i, want_i):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
@@ -157,35 +139,6 @@ def test_rep_safe_add_sub32_adversarial(p):
         assert int(got_sub[i]) % p == (int(a[i]) - int(b[i])) % p
 
 
-def test_hybrid_hw_marker_gate(monkeypatch, tmp_path):
-    """On real TPU the 'auto' hybrid tier requires the hardware parity
-    marker; interpret/CPU and HYBRID=1 bypass it (ntt_dispatch)."""
-    from concrete_ntt_tpu.ops import ntt_dispatch as nd
-
-    monkeypatch.delenv("CONCRETE_NTT_TPU_HYBRID", raising=False)
-    monkeypatch.delenv("CONCRETE_NTT_TPU_PALLAS_INTERPRET", raising=False)
-    monkeypatch.setenv("CONCRETE_NTT_TPU_CACHE_DIR", str(tmp_path))
-    # CPU: no Mosaic in the loop -> deployable
-    assert nd._hybrid_deployable()
-    # pretend we are on hardware: marker absent -> NOT deployable
-    monkeypatch.setattr(nd, "_on_tpu", lambda: True)
-    assert not nd._hybrid_deployable()
-    # forcing overrides
-    monkeypatch.setenv("CONCRETE_NTT_TPU_HYBRID", "1")
-    assert nd._hybrid_deployable()
-    monkeypatch.delenv("CONCRETE_NTT_TPU_HYBRID")
-    # a marker for a DIFFERENT kernel tree does not count (round-4 advisor)
-    with open(nd.hybrid_hw_verified_marker(), "w") as f:
-        f.write("test\nkernels " + "0" * 64 + "\n")
-    assert not nd._hybrid_deployable()
-    # the parity run's marker (current kernel-tree hash) flips it on
-    from concrete_ntt_tpu.ops.pallas_env import kernel_tree_hash
-
-    with open(nd.hybrid_hw_verified_marker(), "w") as f:
-        f.write(f"test\nkernels {kernel_tree_hash()}\n")
-    assert nd._hybrid_deployable()
-
-
 def _regime_prime32(n, tag):
     return {
         "lt30": lambda: lpap(2 * n, 1, 0, 1 << 30),
@@ -214,153 +167,23 @@ def test_hybrid32_fwd_inv_match_mxu32(rng, n, n_h, tag):
 
 
 def test_dispatch_hybrid32_at_2pow15_matches_direct(rng, monkeypatch):
+    """No route serves the 32-bit hybrid; it stays bit-identical to the
+    four-step the GPU route dispatches at n = 2^15."""
     from concrete_ntt_tpu import prime32
+    from concrete_ntt_tpu.ops import ntt_dispatch, stagesplit as ss
 
     n = 1 << 15
     p = _regime_prime32(n, "lt30")
     x = rng.integers(0, p, (1, n), dtype=np.uint32)
-    monkeypatch.setenv("CONCRETE_NTT_TPU_ENGINE", "mxu")
-    monkeypatch.setenv("CONCRETE_NTT_TPU_HYBRID", "0")
+    monkeypatch.setattr(ntt_dispatch, "_platform", lambda: "gpu")
+    assert ntt_dispatch.served_by(32, n, p) == "mxu"
     plan = prime32.Plan.new(n, p)
-    want_f = np.asarray(plan.fwd(x))
-    want_i = np.asarray(plan.inv(x))
-    # the 32-bit hybrid is off in 'auto' since round 5 (slower than the
-    # direct fused kernels at every size on hardware); =1 forces it so the
-    # tier stays bit-exactness-covered
-    monkeypatch.setenv("CONCRETE_NTT_TPU_HYBRID", "1")
-    np.testing.assert_array_equal(np.asarray(plan.fwd(x)), want_f)
-    np.testing.assert_array_equal(np.asarray(plan.inv(x)), want_i)
-
-
-def test_hybrid32_fused_pallas_interpret_matches_xla(rng, monkeypatch):
-    from concrete_ntt_tpu.ops import stagesplit as ss
-
-    monkeypatch.setenv("CONCRETE_NTT_TPU_PALLAS_INTERPRET", "1")
-    n = 1 << 15
-    p = _regime_prime32(n, "lt30")
-    x = jnp.asarray(rng.integers(0, 1 << 32, (2, n), dtype=np.uint64)
-                    .astype(np.uint32))
     np.testing.assert_array_equal(
-        np.asarray(ss.fwd32_fused(x, n=n, p=p)),
-        np.asarray(ss.fwd32(x, n=n, p=p)),
+        np.asarray(ss.fwd32(jnp.asarray(x), n=n, p=p)), np.asarray(plan.fwd(x))
     )
-    s = pow(n, p - 2, p) * pow(2, 32, p) % p
     np.testing.assert_array_equal(
-        np.asarray(ss.inv32_fused(x, n=n, p=p, scale=s)),
-        np.asarray(ss.inv32(x, n=n, p=p, scale=s)),
+        np.asarray(ss.inv32(jnp.asarray(x), n=n, p=p)), np.asarray(plan.inv(x))
     )
-
-
-def test_channel_hybrid64_fwd_matches_per_channel(rng, monkeypatch):
-    """Hybrid channel-grid forward (per-channel prefix + per-block grid
-    kernels, interpret mode) vs the XLA engine per channel."""
-    monkeypatch.setenv("CONCRETE_NTT_TPU_PALLAS_INTERPRET", "1")
-    from concrete_ntt_tpu.ops import stagesplit as ss
-    from concrete_ntt_tpu.tables import PRIMES52
-
-    n = 1 << 15
-    primes = tuple(PRIMES52[:3])
-    limbs = _limbs(rng, 2, n)
-    lo, hi = ss.fwd_multi_hybrid64(limbs, primes, n=n)
-    for i, p in enumerate(primes):
-        want = mxu64.fwd(limbs, n=n, p=p)
-        np.testing.assert_array_equal(np.asarray(lo[i]), np.asarray(want[0]))
-        np.testing.assert_array_equal(np.asarray(hi[i]), np.asarray(want[1]))
-
-
-def test_channel_hybrid64_pointwise_inv_matches_per_channel(rng, monkeypatch):
-    monkeypatch.setenv("CONCRETE_NTT_TPU_PALLAS_INTERPRET", "1")
-    from concrete_ntt_tpu.ops import stagesplit as ss
-    from concrete_ntt_tpu.ops.u32 import mont_mul64, mont_neginv64
-    from concrete_ntt_tpu.tables import PRIMES52
-
-    n = 1 << 15
-    primes = tuple(PRIMES52[:3])
-    scales = tuple(pow(n, p - 2, p) * pow(2, 64, p) % p for p in primes)
-    mk = lambda: jnp.asarray(
-        rng.integers(0, 1 << 32, (3, 2, n), dtype=np.uint64).astype(np.uint32)
-    )
-    fl, fr = (mk(), mk()), (mk(), mk())
-    lo, hi = ss.pointwise_inv_multi_hybrid64(fl, fr, primes, scales, n=n)
-    for i, p in enumerate(primes):
-        prod = mont_mul64(
-            (fl[0][i], fl[1][i]), (fr[0][i], fr[1][i]), p, mont_neginv64(p)
-        )
-        want = mxu64.inv(prod, n=n, p=p, scale=scales[i])
-        np.testing.assert_array_equal(np.asarray(lo[i]), np.asarray(want[0]))
-        np.testing.assert_array_equal(np.asarray(hi[i]), np.asarray(want[1]))
-
-
-def test_native52_polymul_hybrid_dispatch_bit_exact(rng, monkeypatch):
-    """End-to-end native64.Plan52 polymul at n=2^15 through the dispatch
-    layer: hybrid on vs off (interpret mode), bit-identical."""
-    monkeypatch.setenv("CONCRETE_NTT_TPU_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("CONCRETE_NTT_TPU_ENGINE", "mxu")
-    from concrete_ntt_tpu import native64
-
-    n = 1 << 15
-    plan = native64.Plan52.try_new(n)
-    assert plan is not None
-    a = rng.integers(0, 1 << 64, (1, n), dtype=np.uint64)
-    b = rng.integers(0, 1 << 64, (1, n), dtype=np.uint64)
-    monkeypatch.setenv("CONCRETE_NTT_TPU_HYBRID", "0")
-    want = np.asarray(plan.negacyclic_polymul(a, b))
-    monkeypatch.setenv("CONCRETE_NTT_TPU_HYBRID", "auto")
-    got = np.asarray(plan.negacyclic_polymul(a, b))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_channel_hybrid32_wide_fwd_matches_per_channel(rng, monkeypatch):
-    """32-bit channel hybrid: u64-pair prefix per channel (split stays
-    fused) + per-block wide perchannel kernels vs mxu32.fwd_wide."""
-    monkeypatch.setenv("CONCRETE_NTT_TPU_PALLAS_INTERPRET", "1")
-    from concrete_ntt_tpu.ops import mxu32, stagesplit as ss
-    from concrete_ntt_tpu.tables import PRIMES32
-
-    n = 1 << 15
-    primes = tuple(PRIMES32[:3])
-    limbs = _limbs(rng, 2, n)
-    out = ss.fwd_wide_multi_hybrid32(limbs, primes, n=n)
-    for i, p in enumerate(primes):
-        want = mxu32.fwd_wide(limbs, n=n, p=p)
-        np.testing.assert_array_equal(np.asarray(out[i]), np.asarray(want))
-
-
-def test_channel_hybrid32_inv_matches_per_channel(rng, monkeypatch):
-    monkeypatch.setenv("CONCRETE_NTT_TPU_PALLAS_INTERPRET", "1")
-    from concrete_ntt_tpu.ops import mxu32, stagesplit as ss
-    from concrete_ntt_tpu.tables import PRIMES32
-
-    n = 1 << 15
-    primes = tuple(PRIMES32[:3])
-    scales = tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in primes)
-    x = jnp.asarray(
-        rng.integers(0, 1 << 32, (3, 2, n), dtype=np.uint64).astype(np.uint32)
-    )
-    out = ss.inv_multi_hybrid32(x, primes, scales, n=n)
-    for i, p in enumerate(primes):
-        want = mxu32.inv(x[i], n=n, p=p, scale=scales[i])
-        np.testing.assert_array_equal(np.asarray(out[i]), np.asarray(want))
-
-
-def test_native32ch_polymul_hybrid_dispatch_bit_exact(rng, monkeypatch):
-    """End-to-end native64.Plan32 (the flagship family) polymul at n=2^15
-    through the stacked dispatch fast path: hybrid on vs off, bit-exact."""
-    monkeypatch.setenv("CONCRETE_NTT_TPU_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("CONCRETE_NTT_TPU_ENGINE", "mxu")
-    from concrete_ntt_tpu import native64
-
-    n = 1 << 15
-    plan = native64.Plan32.try_new(n)
-    assert plan is not None
-    a = rng.integers(0, 1 << 64, (1, n), dtype=np.uint64)
-    b = rng.integers(0, 1 << 64, (1, n), dtype=np.uint64)
-    monkeypatch.setenv("CONCRETE_NTT_TPU_HYBRID", "0")
-    want = np.asarray(plan.negacyclic_polymul(a, b))
-    # forced: the 32-bit channel hybrid is off in 'auto' since round 5
-    monkeypatch.setenv("CONCRETE_NTT_TPU_HYBRID", "1")
-    got = np.asarray(plan.negacyclic_polymul(a, b))
-    np.testing.assert_array_equal(got, want)
 
 
 def test_hybrid_roundtrip_is_n_times_x(rng):

@@ -1,4 +1,4 @@
-"""u32 limb-arithmetic kernel-vs-bigint equivalence tests — the TPU analogue
+"""u32 limb-arithmetic kernel-vs-bigint equivalence tests — the analogue
 of the reference's SIMD-vs-scalar lane-exact tests (SURVEY.md §4.4:
 lib.rs:794-908 widening muls, native64.rs:1245-1293 reconstruction slices)."""
 

@@ -1,12 +1,10 @@
-"""Interleaved A/B of the Garner lift: scalar VPU chains (ops/crt) vs the
-MXU digit-plane accumulation (crt_mxu), on real TPU in ONE process.
+"""Interleaved A/B of the Garner lift: elementwise u32 chains (ops/crt) vs the
+int8 digit-plane accumulation (crt_mxu), in ONE process.
 
-Round-5 motivation: the hardware profiles put the lift at 13-16% of the
-composed polymul (rec_u64_from5 1.76 µs/poly at n=2^14; rec_u128_from10
-50.1 µs/poly = 16% of the native128 N=2^16 step) at ~13% HBM utilization —
-VPU-compute-bound. crt_mxu moves the mixed-radix accumulation (phase 2)
-onto the MXU; this tool measures both implementations of both lifts with
-the chain-difference method, interleaved, min-of-reps.
+crt_mxu moves the mixed-radix accumulation (phase 2 of the lift) into an
+int8 matmul; this tool measures both implementations of both lifts with
+the chain-difference method, interleaved, min-of-reps. On the CPU backend
+it runs one short round at small sizes (a smoke run, not a measurement).
 
 Usage: python tools/ab_lift.py [--reps 5] [--length 64]
 """
@@ -31,18 +29,16 @@ def main():
     args = ap.parse_args()
 
     import jax
-
-    if os.environ.get("JAX_PLATFORMS") == "cpu":
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from concrete_ntt_tpu import crt_mxu
     from concrete_ntt_tpu.ops import crt
     from concrete_ntt_tpu.tables import native_channel_primes
     from concrete_ntt_tpu.utils.profiling import chain_time
+    from concrete_ntt_tpu.utils.runtime import device_info
 
     rng = np.random.default_rng(0)
-    on_cpu = jax.devices()[0].platform != "tpu"
+    on_cpu = jax.devices()[0].platform == "cpu"
     length = args.length or (2 if on_cpu else 64)
 
     def mk(c, b, n):
@@ -92,8 +88,8 @@ def main():
             t = chain_time(step, (t0, t0), length=length, reps=args.reps)
             per = t / b * 1e9
             results[name] = min(results.get(name, float("inf")), per)
-            print(json.dumps({"leg": name, "ns_per_poly": round(per, 1)}),
-                  flush=True)
+            print(json.dumps({"leg": name, "ns_per_poly": round(per, 1),
+                              "device": device_info()}), flush=True)
     for fam in ("u64from5", "u128from10"):
         a, m = results[f"{fam}-crt"], results[f"{fam}-mxu"]
         print(json.dumps({"family": fam, "crt_ns": round(a, 1),

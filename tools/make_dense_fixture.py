@@ -1,13 +1,13 @@
 """Generate the committed N=2048 dense-oracle fixture.
 
 Computes the EXACT wrapping negacyclic polymul of fixed-seed operands at a
-kernel-relevant size (N = 2048 — large enough that the production MXU/pass
-kernels, not small-n fallbacks, serve it) entirely on the host, and writes
+kernel-relevant size (N = 2048 — large enough that the four-step
+engines, not small-n fallbacks, serve it) entirely on the host, and writes
 SHA-256 digests of the expected outputs to tests/fixtures/dense_oracle_2048.json.
 tests/test_dense_fixture.py then asserts the full device pipeline against
 these digests — closing the gap between "every engine agrees" and "the
 agreed answer is right" at a shape the O(n^2) bigint oracle cannot cover in
-CI time (VERDICT r2 weak-5).
+CI time.
 
 Oracle method (exact, no bigints in the hot loop): split each operand into
 16-bit digits; full convolution of digit polynomials has terms < 2^32 and

@@ -3,7 +3,7 @@
 Run on the CPU backend with the virtual 8-device mesh:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python tools/verify_flows.py
-Flow 5 (bench smoke) runs separately on the real TPU: python bench.py.
+Flow 5 (bench smoke) runs on the card: python bench.py.
 """
 
 import os
@@ -61,7 +61,7 @@ assert np.array_equal(
 )
 print("3. native64 wrapping OK")
 
-# 4. multi-chip dry run (all three sharded paths)
+# 4. multi-device dry run (all sharded paths)
 import __graft_entry__  # noqa: E402
 
 __graft_entry__.dryrun_multichip(8)
